@@ -1,4 +1,4 @@
-"""Boltzmann-vs-EH98 transfer anchor artifact (VERDICT r4 next #5).
+"""Boltzmann-vs-EH98 transfer anchor artifact.
 
 Quantifies, with committed numbers, what the native linear Boltzmann
 solver (``models/boltzmann.py`` - the from-scratch counterpart of the

@@ -1,5 +1,4 @@
-"""Contamination estimate for the DR5-scale benchmark (VERDICT r4 next
-#4): run the finder on sign-inverted maps with the record run's cached
+"""Contamination estimate for the DR5-scale benchmark: run the finder on sign-inverted maps with the record run's cached
 filters (`maps.estimateContaminationFromInvertedMaps`, the reference's
 `nemo/maps.py:1589-1619` diagnostic) and commit the contamination
 fraction vs S/N next to the benchmark.

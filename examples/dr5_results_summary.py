@@ -2,7 +2,7 @@
 dr5_scale_benchmark.py): stage timings, catalog recovery against the
 injected input catalog, and the wall-clock comparison against the
 reference's ACT DR5 production row
-(/root/reference/examples/ACT-DR5-clusters/DR5ClusterSearch.slurm:1-9:
+(Nemo's examples/ACT-DR5-clusters/DR5ClusterSearch.slurm:1-9:
 < 4 h 59 m on ~300 MPI ranks).
 
 Usage: python examples/dr5_results_summary.py <workDir> [logFile]
@@ -89,7 +89,7 @@ def main():
     with open(os.path.join(diagDir, "results_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
 
-    print("## DR5-scale end-to-end result (one TPU chip)\n")
+    print("## DR5-scale end-to-end result\n")
     print("| quantity | value |")
     print("|---|---|")
     print("| end-to-end wall-clock | %.1f s (%.1f min) |"

@@ -1,11 +1,9 @@
 """Multi-device scaling measurement for the sharded production step.
 
-VERDICT r3 "What's missing" #1: "tiles shard linearly over a pod slice"
-was asserted but never measured.  Real multi-chip hardware is not
-available in this environment, so this script measures the next-best
-thing: the SAME sharded production program (detect-mode
+Measures how the SAME sharded production program (detect-mode
 ``make_sharded_matched_filter_step``) executed over 1/2/4/8 virtual XLA
-host devices (``--xla_force_host_platform_device_count``), the mechanism
+host devices (``--xla_force_host_platform_device_count``) behaves, the
+mechanism
 the test suite uses for sharding validation (mirroring the reference's
 single-host ``mpiexec -np 4``, ``tests/lib/NemoTests.py:177``).
 
@@ -15,11 +13,9 @@ embarrassingly tile-parallel by design, like the reference's
 tile-per-MPI-rank loop), and how per-device throughput changes as the
 mesh grows on fixed silicon.
 
-What this does NOT measure: ICI bandwidth or real-chip compute (virtual
-devices share one host's cores).  The honest v5e-8 projection is
-therefore: per-chip rate from BENCH (real chip) x 8, MINUS nothing for
-collectives because the step has none (weak-scaling efficiency here
-quantifies the residual runtime overhead of the larger mesh).
+What this does NOT measure: interconnect bandwidth or device compute
+(virtual devices share one host's cores); the 4-card path runs on the
+GPUs with ``python chip_smoke.py --four-cards``.
 
 Each mesh size runs in a fresh subprocess (host device count is fixed at
 backend init).  Writes JSON to --out.

@@ -1,11 +1,11 @@
-"""nemo_tpu: a TPU-native rebuild of the Nemo SZ cluster / compact-source
+"""nemo_tpu: a JAX rebuild of the Nemo SZ cluster / compact-source
 detection framework (reference: borisbolliet/nemo-1).
 
 The compute path (matched filtering, noise estimation, signal modelling,
-map simulation, selection-function math) runs on TPU via JAX/XLA, with tiles
-as a batched, shardable axis over a ``jax.sharding.Mesh``.  Host code handles
-FITS/WCS/catalog I/O and configuration, with no dependencies beyond
-numpy/scipy/yaml.
+map simulation, selection-function math) runs on the GPU via JAX/XLA, with
+tiles as a batched, shardable axis over a ``jax.sharding.Mesh``.  Host code
+handles FITS/WCS/catalog I/O and configuration, with no dependencies beyond
+numpy/scipy.
 """
 
 __version__ = "0.1.0"
@@ -25,21 +25,4 @@ if _os.environ.get("NEMO_TPU_PLATFORM") or _os.environ.get("NEMO_TPU_X64"):
             _jax.config.update("jax_platforms",
                                _os.environ["NEMO_TPU_PLATFORM"])
     except RuntimeError:
-        pass
-
-# Persistent XLA compilation cache: TPU first-compiles cost tens of seconds
-# per program, which dominates short CLI runs; caching them on disk makes
-# every run after the first fast.  Override the location with
-# NEMO_TPU_COMPILE_CACHE, or set it to "0" to disable.
-_cacheDir = _os.environ.get(
-    "NEMO_TPU_COMPILE_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "nemo_tpu",
-                  "jax_cache"))
-if _cacheDir and _cacheDir != "0":
-    import jax as _jax
-    try:
-        _os.makedirs(_cacheDir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cacheDir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except (RuntimeError, OSError, Exception):
         pass

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """nemoCatalogCheck: cross-check an external catalog against a nemo run.
 
-TPU-native rebuild of ``bin/nemoCatalogCheck:25-106``: reports which
+JAX rebuild of ``bin/nemoCatalogCheck:25-106``: reports which
 objects in the external catalog fall in the valid survey area, which
 were detected, and which are missing; writes the in-mask and missed
 tables (+ DS9 region file) alongside, as the reference does.

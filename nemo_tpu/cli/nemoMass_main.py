@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """nemoMass: cluster mass inference from y0~ measurements + redshifts.
 
-TPU-native rebuild of the reference CLI (``bin/nemoMass``): cross-matches
+JAX rebuild of the reference CLI (``bin/nemoMass``): cross-matches
 the optimal catalog against a redshift catalog, then infers M500c (and
 other mass definitions) from fixed_y_c through the UPP-style scaling
 relation with Eddington de-biasing.
@@ -151,7 +151,6 @@ def calcMassTable(tab, massOptions, Q, fRelWeightsDict, mockSurvey,
                               dtype=float)
             if good.any():
                 # one vectorised (M, z) conversion for the whole catalog
-                # (was the last per-row loop in nemoMass, VERDICT r2 #4)
                 rows = valid[good]
                 masses = mockSurvey.cosmoModel.convertMassDef(
                     base[good] * 1e14, zs[rows], massOptions["delta"],

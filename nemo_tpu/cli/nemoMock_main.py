@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """nemoMock: generate mock cluster catalogs from a selFn directory.
 
-TPU-native rebuild of ``bin/nemoMock``.
+JAX rebuild of ``bin/nemoMock``.
 """
 
 import argparse

@@ -3,7 +3,7 @@
 catalog, optionally adding a CMB realisation, white / 1-f noise, and
 extra pre-computed signal maps.
 
-TPU-native rebuild of ``bin/nemoModel`` with the full reference flag
+JAX rebuild of ``bin/nemoModel`` with the full reference flag
 surface (``bin/nemoModel:23-105``): ``pointsources-N`` test catalogs,
 ``-N`` accepting a level / 'Nsb' surface-brightness level / inverse-
 variance map path, ``-A/--add-map``, ``--split-noise-test``,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """nemoSpec: extract SEDs at catalog positions from multi-frequency maps.
 
-TPU-native rebuild of ``bin/nemoSpec`` (CAP or matched-filter methods).
+JAX rebuild of ``bin/nemoSpec`` (CAP or matched-filter methods).
 """
 
 import argparse

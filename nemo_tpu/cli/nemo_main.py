@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """nemo driver: filter maps and find clusters / sources.
 
-TPU-native rebuild of the reference CLI (``bin/nemo``): same flags and the
+JAX rebuild of the reference CLI (``bin/nemo``): same flags and the
 same output layout; -M is accepted for compatibility (tiles shard over the
 JAX device mesh rather than MPI ranks).
 """
@@ -55,11 +55,13 @@ def makeParser():
 
 def main():
     args = makeParser().parse_args()
+    from nemo_tpu.utils.timing import GLOBAL_TIMER, profile_trace
+    GLOBAL_TIMER.reset()
     if args.x64:
         import jax
         jax.config.update("jax_enable_x64", True)
 
-    # Multi-host (DCN) runtime: no-op unless NEMO_TPU_MULTIHOST=1
+    # Multi-host runtime: no-op unless NEMO_TPU_MULTIHOST=1
     # (parallel/multihost.py documents the launch contract); must run
     # before first device use.
     from nemo_tpu.parallel import multihost
@@ -91,7 +93,6 @@ def main():
             config.rootOutDir, "%s_optimalCatalog.csv"
             % os.path.split(config.rootOutDir)[-1])
 
-    from nemo_tpu.utils.timing import GLOBAL_TIMER, profile_trace
     if args.profileChunk:
         from nemo_tpu.parallel import engine as batch_engine
         batch_engine.PROFILE_CHUNK_DIR = os.path.join(

@@ -24,7 +24,7 @@ Everything here is pure numpy/JAX-compatible math:
 
 Grids are precomputed with numpy at construction; hot-path evaluations
 (HMF on the (z, M) grid for SelFn.update) are plain array math that can be
-jitted on TPU.
+jitted for the device.
 """
 
 import functools
@@ -78,8 +78,8 @@ class FlatLCDM:
     counterpart of the reference's CCL ``boltzmann_camb`` transfer,
     ``nemo/MockSurvey.py:159-307``; sigma(M) SHAPE differs from EH98 by
     the documented -1%..+2% over M 1e13..1e16).  The Boltzmann table
-    costs ~seconds on TPU / a few minutes on one CPU core per distinct
-    (H0, Om0, Ob0); results are cached per parameter set.
+    is solved on the host CPU once per distinct (H0, Om0, Ob0); results
+    are cached per parameter set.
     """
 
     def __init__(self, H0=70.0, Om0=0.3, Ob0=0.05, sigma8=0.8, ns=0.95,

@@ -103,10 +103,8 @@ def paintSignalMap(shape, pix_scales_rad, rDeg, prof, beam=None,
         amplitude: peak amplitude(s) *before* beam convolution (reference
             semantics, ``signals.py:653-655``); None = unnormalised template.
         maxSizeDeg: truncation radius for painting.
-        returnDevice: keep the painted map on device (no host copy) - on
-            remote TPU runtimes the full-map device->host transfer
-            dominates template construction, so batch consumers (fitQ)
-            keep everything resident.
+        returnDevice: keep the painted map on device (no host copy), so
+            batch consumers (fitQ) keep everything resident.
 
     Returns:
         (ny, nx) map - numpy, or jnp when ``returnDevice``.

@@ -428,19 +428,10 @@ def calcMassBatch(y0s, y0Errs, zs, zErrs, QFit, mockSurvey, tenToA0=4.95e-5,
                   tileNames=None):
     """Masses for a whole catalog in one batched device computation.
 
-    The TPU-native replacement for the reference's per-row hot loop
+    The device replacement for the reference's per-row hot loop
     (``bin/nemoMass:103-215`` calling ``signals.py:1339-1452`` one cluster
     at a time): the P(log10M | y0~, z) grids for every row are evaluated
     together on device, then the ML mass + 68.3% interval per row.
-
-    Measured (2026-08-17, 10,000-row catalog, half photo-z, TPU v5e
-    chip, warm): ~1,800-2,260 rows/s for BOTH the de-biased and Uncorr
-    variants end to end (host term staging ~1.0 s via the (tile, z)
-    term cache, posterior ~1.1 s, fine-grid ML search ~2.3-3.5 s; first
-    call adds ~65 s of XLA compile).  Single-CPU-core fallback: ~190
-    rows/s.  The per-row ``calcMass`` path does 78 rows/s per pass on
-    the same host (28 rows/s at round 1) - i.e. >25x per produced mass
-    column on chip, matching per-row results to float precision.
 
     Returns a dict of arrays: the mass-definition label and its errors for
     both the de-biased and the Uncorr (no HMF prior) estimates, plus Q.

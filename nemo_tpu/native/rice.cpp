@@ -1,6 +1,6 @@
 // RICE_1 codec for FITS tile compression (cfitsio-compatible bitstream).
 //
-// TPU-native replacement for the cfitsio Rice routines astropy uses when
+// Self-contained replacement for the cfitsio Rice routines astropy uses when
 // the reference writes compressed masks/RMS maps (``nemo/maps.py:533-605``,
 // ``nemo/completeness.py:1686-1716``) and when reading RICE-compressed
 // ACT/SO survey maps.  The format (per the FITS tiled-image convention):

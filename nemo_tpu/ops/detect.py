@@ -1,12 +1,11 @@
 """On-device object detection: connected components + segment statistics.
 
-TPU-native replacement for the host detection stage (scipy
+Device replacement for the host detection stage (scipy
 ``ndimage.label`` / ``center_of_mass`` / ``maximum_position`` in
 ``nemo/photometry.py:193-222``): S/N-map segmentation runs on the device
-and only O(K) per-object statistics and small per-object cutouts cross
-the host link - at DR5 scale on a remote TPU runtime, downloading the
-full filtered + S/N maps for every (tile, scale) costs minutes per chunk
-at single-digit MB/s, while detections are ~30 KB.
+and only O(K) per-object statistics and small per-object cutouts go to
+the host, instead of the full filtered + S/N maps for every (tile,
+scale); detections are ~30 KB.
 
 Algorithm:
 
@@ -24,20 +23,18 @@ Algorithm:
    bucket is the ORDINAL of its component's root among all roots in
    flat order: ``ord = exclusive_cumsum(isRoot)`` makes the bucket a
    single gather ``ord[label]`` (the label IS the root's flat index) -
-   no top_k and no searchsorted (measured on a v5e at the DR5 survey
-   shape, 8 x 900 x 1728: searchsorted alone cost 0.99 s/batch).
+   no top_k and no searchsorted.
 4. Per-component count, value-weighted centroid (= scipy
    ``center_of_mass`` with the map as weights), peak value and
    first-maximum position (= scipy ``maximum_position``) come from
-   segment reductions.  On TPU these run on a COMPACTED fixed-size
-   buffer of the significant pixels (``jnp.nonzero`` with a static
-   size; one one-hot matmul on the MXU, f32-exact via
-   Precision.HIGHEST) - a 4-sigma threshold keeps ~0.003% of pixels,
-   so the gather replaces a 190-block scan over the full map (~0.17 s
-   -> ~0.01 s at the DR5 chunk shape, docs/benchmarks/profile_r4).
-   Blowing the pixel budget forces the caller's host-fallback path.
-   Elsewhere (CPU tests) the plain ``segment_sum`` scatter path wins
-   and is used instead; the blocked matmul scan is kept as a third
+   segment reductions.  The backend's decision row (``platform.py``)
+   picks the formulation: on the GPU a COMPACTED fixed-size buffer of
+   the significant pixels (``jnp.nonzero`` with a static size; one
+   one-hot matmul, f32-exact via Precision.HIGHEST) - a 4-sigma
+   threshold keeps ~0.003% of pixels, so the gather replaces a scan
+   over the full map.  Blowing the pixel budget forces the caller's
+   host-fallback path.  On the CPU the plain ``segment_sum`` scatter
+   path is used; the blocked matmul scan is kept as a third
    implementation for cross-checks.
 """
 
@@ -46,6 +43,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .. import platform
 
 
 _BIG = np.int32(2 ** 30)
@@ -79,8 +78,7 @@ _BLOCK = 8192
 
 
 def _segment_stats_scatter(snFlat, seg, b, inBucket, max_objects, nx):
-    """Reference formulation: XLA scatter-based segment reductions.
-    Fastest on CPU; on TPU the conflicting scatter updates serialise."""
+    """Reference formulation: XLA scatter-based segment reductions."""
     K1 = max_objects + 1
     n = snFlat.shape[0]
     yy = (jnp.arange(n, dtype=snFlat.dtype) // nx)
@@ -140,9 +138,9 @@ def _segment_stats_compact(snFlat, seg, inBucket, maskFlat, max_objects,
 
 
 def _segment_stats_blocked(snFlat, seg, inBucket, max_objects, nx):
-    """TPU formulation: scan over fixed pixel blocks; the four weighted
-    sums are one (block x K+1) one-hot matmul per block (MXU,
-    Precision.HIGHEST so f32 operands are not truncated to bf16), the
+    """Blocked formulation: scan over fixed pixel blocks; the four
+    weighted sums are one (block x K+1) one-hot matmul per block
+    (Precision.HIGHEST so f32 operands are not rounded), the
     peak / first-maximum reductions are masked block reductions combined
     across blocks with exact scipy scan-order tie-breaking."""
     K1 = max_objects + 1
@@ -201,10 +199,10 @@ def detect_objects(SNMap, threshold, max_objects=128, n_iter=128,
             ``nObjects`` reports the true count so callers can detect
             overflow and fall back).
         impl: segment-reduction formulation - "compact" (fixed-budget
-            significant-pixel gather + one-hot matmul, fastest on TPU),
+            significant-pixel gather + one-hot matmul),
             "blocked" (one-hot matmul scan over the full map),
-            "scatter" (``segment_sum``, fastest on CPU), or "auto" (by
-            backend).  Outputs are identical; position entries of
+            "scatter" (``segment_sum``), or "auto" (the backend's
+            decision row).  Outputs are identical; position entries of
             INVALID buckets are unspecified in all.  The compact impl
             budgets ``_MAXPIX`` significant pixels per map; beyond it
             the returned ``nObjects`` is forced above ``max_objects``
@@ -217,11 +215,7 @@ def detect_objects(SNMap, threshold, max_objects=128, n_iter=128,
         scan order), plus scalar nObjects.
     """
     if impl == "auto":
-        # Measured at the DR5 survey shape (8 x 900 x 1728, v5e,
-        # 2026-08-20): whole-detect 1.62 s with (top_k + searchsorted +
-        # scatter), 0.22 s with (ord-gather + blocked matmul scan),
-        # ~0.1 s with the compact gather (docs/benchmarks/profile_r4).
-        impl = "compact" if jax.default_backend() == "tpu" else "scatter"
+        impl = platform.choices().segment_stats
     ny, nx = SNMap.shape
     mask = SNMap > threshold
     labels = label_components(mask, n_iter=n_iter)
@@ -372,14 +366,15 @@ def spline_values_from_cutouts(cut, y0, x0, ys, xs):
     dt = cut.dtype
     t = jnp.asarray(t_np, dt)
     M = jnp.asarray(M_np, dt)
-    C = jnp.einsum("ip,kmpq,jq->kmij", M, cut, M)
+    hi = jax.lax.Precision.HIGHEST
+    C = jnp.einsum("ip,kmpq,jq->kmij", M, cut, M, precision=hi)
     Ny, iy = _bspline_basis4(t, ys.astype(dt) - y0.astype(dt), P)
     Nx, ix = _bspline_basis4(t, xs.astype(dt) - x0.astype(dt), P)
 
     def pick(Ck, ny, nx, iy0, ix0):
         blk = jax.lax.dynamic_slice(Ck, (jnp.int32(0), iy0, ix0),
                                     (nMaps, 4, 4))
-        return jnp.einsum("a,mab,b->m", ny, blk, nx)
+        return jnp.einsum("a,mab,b->m", ny, blk, nx, precision=hi)
 
     return jax.vmap(pick)(C, Ny, Nx, iy - 3, ix - 3)
 
@@ -398,7 +393,7 @@ def nearest_values(maps3d, ys, xs):
 def spline_values(maps3d, ys, xs, window=16):
     """Sub-pixel reads of a map stack at float positions, fully on
     device: (spline (K, nMaps), nearest (K, nMaps)).  Ships O(K) scalars
-    over the host link instead of O(K x P x P) cutouts."""
+    to the host instead of O(K x P x P) cutouts."""
     cut, y0, x0 = gather_cutouts(maps3d, ys, xs, window=window)
     sp = spline_values_from_cutouts(cut, y0, x0, ys, xs)
     return sp, nearest_values(maps3d, ys, xs)

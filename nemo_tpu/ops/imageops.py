@@ -4,9 +4,10 @@ The reference uses scipy.ndimage for noise-covariance smoothing
 (``gaussian_filter``, ``nemo/filters.py:583``), edge trimming
 (``rank_filter`` rank 0 == minimum filter, ``filters.py:737``), real-space
 kernel convolution (``ndimage.convolve``, ``filters.py:1201``) and mask
-dilation (``mahotas.dilate``, ``nemo/maps.py:256``).  These run on TPU here,
-vectorised over batched tiles; each is tested for numerical parity against
-scipy on the CPU backend.
+dilation (``mahotas.dilate``, ``nemo/maps.py:256``).  These run on the
+device here, vectorised over batched tiles; each is tested for numerical
+parity against scipy on the CPU backend.  Convolutions ask for HIGHEST
+precision so that float32 inputs are not rounded to TF32 on the GPU.
 """
 
 import functools
@@ -14,6 +15,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=32)
@@ -38,7 +41,7 @@ def _correlate1d_reflect(m, weights, radius, axis):
     flat = moved.reshape((-1, 1, moved.shape[-1]))
     kern = w[::-1].reshape((1, 1, -1))  # correlation via flipped convolution
     out = jax.lax.conv_general_dilated(
-        flat, kern, window_strides=(1,), padding="VALID")
+        flat, kern, window_strides=(1,), padding="VALID", precision=_HIGHEST)
     out = out.reshape(lead_shape + (out.shape[-1],))
     return jnp.moveaxis(out, -1, axis)
 
@@ -193,7 +196,7 @@ def convolve2d_reflect(m, kernel):
     flat = padded.reshape((-1, 1) + padded.shape[-2:])
     kern = jnp.asarray(kernel, dtype=m.dtype)[::-1, ::-1][None, None]
     out = jax.lax.conv_general_dilated(flat, kern, window_strides=(1, 1),
-                                       padding="VALID")
+                                       padding="VALID", precision=_HIGHEST)
     return out.reshape(m.shape[:-2] + out.shape[-2:])
 
 
@@ -202,7 +205,7 @@ def convolve2d_reflect_sum(m, kernels):
     shape (nf, ny, nx) and per-frequency kernels (nf, ky, kx), returns
     ``sum_f ndimage.convolve(m[f], kernels[f], mode='reflect')`` as one
     XLA conv (frequencies become input channels of a single-output-channel
-    convolution, so the frequency sum fuses into the MXU contraction).
+    convolution, so the frequency sum fuses into the contraction).
 
     Exactly equals summing :func:`convolve2d_reflect` per frequency.
     """
@@ -214,7 +217,7 @@ def convolve2d_reflect_sum(m, kernels):
     lhs = padded[None]                                     # (1, nf, Y, X)
     rhs = jnp.asarray(kernels, dtype=m.dtype)[:, ::-1, ::-1][None]
     out = jax.lax.conv_general_dilated(lhs, rhs, window_strides=(1, 1),
-                                       padding="VALID")
+                                       padding="VALID", precision=_HIGHEST)
     return out[0, 0]
 
 

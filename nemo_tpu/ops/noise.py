@@ -6,7 +6,7 @@ python, re-measuring a 3-sigma-clipped standard deviation (or biweight /
 percentile estimate) per cell, with half-cell overlapping windows whose
 writes overlap so later cells overwrite earlier ones.
 
-TPU formulation: all cell windows are gathered as one fixed-shape
+Device formulation: all cell windows are gathered as one fixed-shape
 (nCells, Wy, Wx) tensor (zero padding outside the map is self-masking,
 because validity is defined by pixel != 0), the clipping loop is a fixed
 10-iteration masked reduction over cells (exactly the reference's
@@ -19,6 +19,10 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .. import platform
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def cell_edges(n, gridSize):
@@ -141,8 +145,7 @@ def grid_rms_map(mapData, gridSize_pix, overlap_pix=None, estimator="default",
         estimator: 'default' (3-sigma clip) or 'percentile'.
         return_cells: return the (nCy, nCx) per-cell RMS grid instead of
             the full-resolution map (see :func:`assemble_rms_host` - the
-            grid is ~4 orders of magnitude smaller, which matters when
-            results cross a slow host-device link).
+            grid is ~4 orders of magnitude smaller to download).
 
     Returns:
         RMS map, same shape (or the cell grid with ``return_cells``).
@@ -200,110 +203,110 @@ def whole_map_rms(mapData, estimator="default", n_iter=10):
 
 
 # -----------------------------------------------------------------------------
-# Pallas TPU kernel: fused per-cell sigma-clip.
+# Pallas (Triton) kernel: fused per-cell sigma-clip.
 #
-# The XLA path above gathers all (overlapping) cell windows into a
-# (nCells, Wy, Wx) tensor and runs 10 masked-reduction iterations over it -
-# every iteration re-reads the windows from HBM.  The Pallas kernel instead
-# assigns one grid step per cell, DMAs that cell's window from the padded
-# map in HBM into VMEM once, and runs the whole 10-iteration clip loop
-# on-chip, writing back a single scalar per cell.
+# The XLA path gathers all (overlapping) cell windows into a
+# (nT, nCells, Wy, Wx) tensor and runs the 10 masked-reduction iterations
+# over it.  The kernel instead runs one program per (tile, cell) that
+# reads its window straight from the padded map, a block of rows at a
+# time, for each of the clip loop's 22 masked sums - the window
+# (240 x 240 float32 at gridSize 80) is larger than a block's shared
+# memory, so it streams through L2 instead of being materialised.
 
-def _rms_cell_kernel(starts_y, starts_x, offs_y, offs_x, lens_y, lens_x,
-                     padded_hbm, out_ref, scratch, sem):
-    import jax.numpy as jnp
+_ROWS = 8       # window rows per load
+
+
+def _rms_cell_kernel(sy_ref, sx_ref, ly_ref, lx_ref, map_ref, out_ref, *,
+                     n_row_blocks, width, n_iter):
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     t = pl.program_id(0)
     c = pl.program_id(1)
-    Wy, Wx = scratch.shape
+    sy, sx = sy_ref[t, c], sx_ref[t, c]
+    ly, lx = ly_ref[t, c], lx_ref[t, c]
+    rows = jnp.arange(_ROWS)
+    colOk = (jnp.arange(width) < lx)[None, :]
+    dt = out_ref.dtype
 
-    # starts are pre-aligned to the (8, 128) DMA tiling (per tile: cell
-    # geometry follows each tile's TRUE shape); the true window begins
-    # offs into the slab and spans lens pixels.
-    dma = pltpu.make_async_copy(
-        padded_hbm.at[t, pl.ds(pl.multiple_of(starts_y[t, c], 8), Wy),
-                      pl.ds(pl.multiple_of(starts_x[t, c], 128), Wx)],
-        scratch, sem)
-    dma.start()
-    dma.wait()
+    def load(b):
+        inWin = ((b * _ROWS + rows) < ly)[:, None] & colOk
+        v = plgpu.load(map_ref.at[t, pl.ds(sy + b * _ROWS, _ROWS),
+                                  pl.ds(sx, width)],
+                       mask=inWin, other=0.0)
+        return v, inWin & (v != 0)
 
-    v = scratch[:]
-    iy = jax.lax.broadcasted_iota(jnp.int32, (Wy, Wx), 0)
-    ix = jax.lax.broadcasted_iota(jnp.int32, (Wy, Wx), 1)
-    in_y = jnp.logical_and(iy >= offs_y[t, c],
-                           iy < offs_y[t, c] + lens_y[t, c])
-    in_x = jnp.logical_and(ix >= offs_x[t, c],
-                           ix < offs_x[t, c] + lens_x[t, c])
-    good = jnp.logical_and(v != 0, jnp.logical_and(in_y, in_x))
-    goodf = good.astype(v.dtype)
-    n0 = jnp.sum(goodf)
-    safe_n0 = jnp.maximum(n0, 1.0)
-    mean = jnp.sum(v * goodf) / safe_n0
-    var = jnp.sum(goodf * (v - mean) ** 2) / safe_n0
-    rms = jnp.sqrt(var)
+    def sums(thr):
+        """(count, sum) over the good pixels with |v| < thr."""
+        def body(b, acc):
+            v, good = load(b)
+            m = (good & (jnp.abs(v) < thr)).astype(dt)
+            return acc[0] + m, acc[1] + v * m
+        z = jnp.zeros((_ROWS, width), dt)
+        n, sv = jax.lax.fori_loop(0, n_row_blocks, body, (z, z))
+        return jnp.sum(n), jnp.sum(sv)
 
-    def body(_, carry):
+    def sqdev(thr, mean):
+        def body(b, acc):
+            v, good = load(b)
+            m = (good & (jnp.abs(v) < thr)).astype(dt)
+            return acc + m * (v - mean) ** 2
+        acc = jax.lax.fori_loop(0, n_row_blocks, body,
+                                jnp.zeros((_ROWS, width), dt))
+        return jnp.sum(acc)
+
+    inf = jnp.asarray(jnp.inf, dt)
+    n0, s0 = sums(inf)
+    safe0 = jnp.maximum(n0, 1.0)
+    mean = s0 / safe0
+    rms = jnp.sqrt(sqdev(inf, mean) / safe0)
+
+    def clip(_, carry):
         mean, rms = carry
-        clip = jnp.abs(v) < jnp.abs(mean + 3.0 * rms)
-        m = jnp.logical_and(good, clip).astype(v.dtype)
-        nm = jnp.sum(m)
+        thr = jnp.abs(mean + 3.0 * rms)
+        nm, sm = sums(thr)
         safe = jnp.maximum(nm, 1.0)
-        new_mean = jnp.sum(v * m) / safe
-        new_var = jnp.sum(m * (v - new_mean) ** 2) / safe
-        new_rms = jnp.sqrt(new_var)
+        newMean = sm / safe
+        newRms = jnp.sqrt(sqdev(thr, newMean) / safe)
         keep = nm > 0
-        return (jnp.where(keep, new_mean, mean),
-                jnp.where(keep, new_rms, rms))
+        return (jnp.where(keep, newMean, mean), jnp.where(keep, newRms, rms))
 
-    mean, rms = jax.lax.fori_loop(0, 10, body, (mean, rms))
-    out_ref[t, c] = jnp.where(n0 > 0, rms, 0.0)
+    mean, rms = jax.lax.fori_loop(0, n_iter, clip, (mean, rms))
+    out_ref[t, c] = jnp.where(n0 > 0, rms, 0.0).astype(dt)
 
 
-def _grid_rms_cells_pallas(paddedBatch, starts_y, starts_x, offs_y, offs_x,
-                           lens_y, lens_x, window, interpret=False):
-    """Per-cell clipped RMS via the fused Pallas kernel.
-
-    Args:
-        paddedBatch: (nT, PY, PX) zero-padded maps.
-        starts_y/x, lens_y/x: int32 (nT, nCells) per-tile window anchors
-            and true extents (kernel data; a zero length marks an unused
-            cell slot, whose RMS comes back 0).
-        window: (Wy, Wx) static window size.
-    Returns:
-        (nT, nCells) cell RMS values.
+def _grid_rms_cells_triton(mapBatch, meta, window, ov, n_iter=10,
+                           interpret=False):
+    """Per-cell clipped RMS of the per-tile-geometry estimator through the
+    Pallas Triton kernel; same contract as :func:`_grid_rms_cells_xla_meta`.
     """
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
-    nT = paddedBatch.shape[0]
-    nCells = starts_y.shape[-1]
     Wy, Wx = window
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=6,
-        grid=(nT, nCells),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        # One whole-array SMEM block revisited by every grid step (TPU
-        # lowering requires aligned or full-array block dims; the array is
-        # tiny and written one scalar per step).
-        out_specs=pl.BlockSpec((nT, nCells), lambda t, c, *_: (0, 0),
-                               memory_space=pltpu.SMEM),
-        scratch_shapes=[pltpu.VMEM((Wy, Wx), paddedBatch.dtype),
-                        pltpu.SemaphoreType.DMA(())],
-    )
+    nT = mapBatch.shape[0]
+    nCells = meta["startsY"].shape[-1]
+    width = int(pl.next_power_of_2(Wx))
+    nRowBlocks = -(-Wy // _ROWS)
+    # Pad so every row block and every full-width load stays inside the
+    # array (masked lanes are never read on the card, but interpret mode
+    # clamps out-of-range slices).
+    padded = jnp.pad(mapBatch, ((0, 0), (ov, nRowBlocks * _ROWS),
+                                (ov, width)))
+    effY = jnp.where(meta["lensY"] > 0, meta["lensY"] + 2 * ov, 0)
+    effX = jnp.where(meta["lensX"] > 0, meta["lensX"] + 2 * ov, 0)
+    kernel = functools.partial(_rms_cell_kernel, n_row_blocks=nRowBlocks,
+                               width=width, n_iter=n_iter)
     return pl.pallas_call(
-        _rms_cell_kernel,
-        out_shape=jax.ShapeDtypeStruct((nT, nCells), paddedBatch.dtype),
-        grid_spec=grid_spec,
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((nT, nCells), mapBatch.dtype),
+        grid=(nT, nCells),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(jnp.asarray(starts_y, dtype=jnp.int32),
-      jnp.asarray(starts_x, dtype=jnp.int32),
-      jnp.asarray(offs_y, dtype=jnp.int32),
-      jnp.asarray(offs_x, dtype=jnp.int32),
-      jnp.asarray(lens_y, dtype=jnp.int32),
-      jnp.asarray(lens_x, dtype=jnp.int32),
-      paddedBatch)
+        name="rms_cells",
+    )(*(jnp.asarray(a, jnp.int32) for a in
+        (meta["startsY"], meta["startsX"], effY, effX)), padded)
 
 
 def assemble_rms_host(cellRMS, ny, nx, gridSize_pix, overlap_pix=None):
@@ -451,7 +454,8 @@ def _assemble_rms_meta(cells, c0y, c1y, c0x, c1x):
     with traced per-pixel candidate indices, reproducing _assemble_rms'
     overwrite priority ((r0,c0) > (r0,c1) > (r1,c0) > (r1,c1); a zero
     cell exposes the next candidate).  One-hot matmuls instead of
-    gathers: MXU-friendly, and exact (each row sums one product v*1)."""
+    gathers, exact because each row sums one product v*1 - at HIGHEST
+    precision, since a TF32 product would round v to 10 mantissa bits."""
     nCy, nCx = cells.shape
 
     def onehot(c, nC):
@@ -463,7 +467,8 @@ def _assemble_rms_meta(cells, c0y, c1y, c0x, c1x):
     Cx0, Cx1 = onehot(c0x, nCx), onehot(c1x, nCx)
     out = jnp.zeros((c0y.shape[0], c0x.shape[0]), cells.dtype)
     for Ry, Cx in ((Ry1, Cx1), (Ry1, Cx0), (Ry0, Cx1), (Ry0, Cx0)):
-        v = Ry @ cells @ Cx.T
+        v = jnp.matmul(jnp.matmul(Ry, cells, precision=_HIGHEST), Cx.T,
+                       precision=_HIGHEST)
         ok = (v > 0)
         out = jnp.where(ok, v, out)
     return out
@@ -471,7 +476,7 @@ def _assemble_rms_meta(cells, c0y, c1y, c0x, c1x):
 
 def _grid_rms_cells_xla_meta(mapBatch, meta, window, ov, n_iter=10,
                              estimator="default"):
-    """XLA (CPU) path of the per-tile-geometry estimator: vmapped
+    """XLA path of the per-tile-geometry estimator: vmapped
     dynamic_slice window gathers with traced per-tile anchors."""
     Wy, Wx = window
 
@@ -501,8 +506,9 @@ def _grid_rms_cells_xla_meta(mapBatch, meta, window, ov, n_iter=10,
 def grid_rms_map_batch(mapBatch, gridSize_pix, overlap_pix=None,
                        impl="auto", interpret=False, return_cells=False,
                        meta=None):
-    """Batched noise-map estimation (nT, ny, nx) -> (nT, ny, nx), with the
-    fused Pallas kernel on TPU ('pallas') or the XLA gather path ('xla').
+    """Batched noise-map estimation (nT, ny, nx) -> (nT, ny, nx), through
+    XLA's gathers ('xla') or the fused Pallas Triton kernel ('triton');
+    'auto' takes the backend's decision row.
     With ``return_cells`` the (nT, nCy, nCx) per-cell grid is returned
     instead (expand with :func:`assemble_rms_host`).
 
@@ -517,85 +523,28 @@ def grid_rms_map_batch(mapBatch, gridSize_pix, overlap_pix=None,
     nT, ny, nx = mapBatch.shape
     gridSize = int(gridSize_pix)
     if impl == "auto":
-        # Measured on a real v5e chip at the DR5 tile shape (16 tiles of
-        # 896x1536, gridSize 80, 2026-08-16): the fused Pallas kernel takes
-        # 27.7 ms/batch vs 13.2 s/batch for the XLA gather formulation
-        # (the per-cell window gather defeats XLA's tiling). On CPU the
-        # Pallas kernel only runs in (slow) interpret mode, so XLA wins.
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+        impl = platform.choices().rms_impl
+    if impl not in ("xla", "triton"):
+        raise ValueError("unknown RMS implementation %r" % (impl,))
 
-    if meta is not None:
-        Wy, Wx, ov = meta_window(gridSize, (ny, nx), overlap_pix)
-        nCy, nCx = n_cells(ny, gridSize), n_cells(nx, gridSize)
-        if impl == "xla":
-            cellRMS = _grid_rms_cells_xla_meta(mapBatch, meta, (Wy, Wx),
-                                               ov)
-        else:
-            starts_y = jnp.asarray(meta["startsY"], dtype=jnp.int32)
-            starts_x = jnp.asarray(meta["startsX"], dtype=jnp.int32)
-            starts_y_al = (starts_y // 8) * 8
-            starts_x_al = (starts_x // 128) * 128
-            eff_y = jnp.where(meta["lensY"] > 0,
-                              meta["lensY"] + 2 * ov, 0).astype(jnp.int32)
-            eff_x = jnp.where(meta["lensX"] > 0,
-                              meta["lensX"] + 2 * ov, 0).astype(jnp.int32)
-            Wy_al = -(-(Wy + 8) // 8) * 8
-            Wx_al = -(-(Wx + 128) // 128) * 128
-            padded = jnp.pad(mapBatch, ((0, 0), (ov, Wy_al), (ov, Wx_al)))
-            cellRMS = _grid_rms_cells_pallas(
-                padded, starts_y_al, starts_x_al,
-                starts_y - starts_y_al, starts_x - starts_x_al,
-                eff_y, eff_x, (Wy_al, Wx_al), interpret=interpret)
-        cellRMS = cellRMS.reshape(nT, nCy, nCx)
-        if return_cells:
-            return cellRMS
-        return jax.vmap(_assemble_rms_meta)(cellRMS, meta["c0y"],
-                                            meta["c1y"], meta["c0x"],
-                                            meta["c1x"])
-
-    ov = int(gridSize // 2) if overlap_pix is None else int(overlap_pix)
-    ye = cell_edges(ny, gridSize)
-    xe = cell_edges(nx, gridSize)
-    nCy, nCx = len(ye) - 1, len(xe) - 1
-    Wy = int(np.diff(ye).max() + 2 * ov)
-    Wx = int(np.diff(xe).max() + 2 * ov)
-
-    if impl == "xla":
+    if meta is None and impl == "xla":
         return jax.vmap(lambda m: grid_rms_map(m, gridSize_pix,
                                                overlap_pix=overlap_pix,
                                                return_cells=return_cells))(
             mapBatch)
+    if meta is None:
+        meta = {k: jnp.asarray(v) for k, v in cell_meta_batch(
+            [(ny, nx)] * nT, (ny, nx), gridSize, overlap_pix).items()}
 
-    starts_y = np.repeat(ye[:-1], nCx)
-    starts_x = np.tile(xe[:-1], nCy)
-    lens_y = np.repeat(np.diff(ye), nCx) + 2 * ov
-    lens_x = np.tile(np.diff(xe), nCy) + 2 * ov
-    # Mosaic DMA slices need tiling-aligned shapes AND offsets: align each
-    # window anchor DOWN to (8, 128) multiples and carry the residual as an
-    # in-window offset handled by the validity mask.
-    starts_y_al = (starts_y // 8) * 8
-    starts_x_al = (starts_x // 128) * 128
-    offs_y = starts_y - starts_y_al
-    offs_x = starts_x - starts_x_al
-    Wy_al = -(-(Wy + 8) // 8) * 8
-    Wx_al = -(-(Wx + 128) // 128) * 128
-    padded = jnp.pad(mapBatch, ((0, 0), (ov, Wy_al), (ov, Wx_al)))
-
-    def bcast(a):
-        return jnp.broadcast_to(jnp.asarray(a, dtype=jnp.int32)[None],
-                                (nT, len(a)))
-
-    # anchors are relative to the padded array: start = edge - ov + ov = edge
-    cellRMS = _grid_rms_cells_pallas(padded, bcast(starts_y_al),
-                                     bcast(starts_x_al), bcast(offs_y),
-                                     bcast(offs_x), bcast(lens_y),
-                                     bcast(lens_x),
-                                     (Wy_al, Wx_al), interpret=interpret)
+    Wy, Wx, ov = meta_window(gridSize, (ny, nx), overlap_pix)
+    nCy, nCx = n_cells(ny, gridSize), n_cells(nx, gridSize)
+    if impl == "xla":
+        cellRMS = _grid_rms_cells_xla_meta(mapBatch, meta, (Wy, Wx), ov)
+    else:
+        cellRMS = _grid_rms_cells_triton(mapBatch, meta, (Wy, Wx), ov,
+                                         interpret=interpret)
     cellRMS = cellRMS.reshape(nT, nCy, nCx)
     if return_cells:
         return cellRMS
-
-    plan_y = _expansion_plan(ye, nCy, ny, ov)
-    plan_x = _expansion_plan(xe, nCx, nx, ov)
-    return jax.vmap(lambda cells: _assemble_rms(cells, plan_y, plan_x,
-                                                ny, nx))(cellRMS)
+    return jax.vmap(_assemble_rms_meta)(cellRMS, meta["c0y"], meta["c1y"],
+                                        meta["c0x"], meta["c1x"])

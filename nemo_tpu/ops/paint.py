@@ -6,7 +6,7 @@ common 1-d radial profile are splatted at sub-pixel positions by evaluating
 the profile on the exact angular distance grid of a bounded window around
 each object, then scatter-added into the canvas.
 
-TPU design notes: the window size is static (derived from ``rmax``), so the
+Design notes: the window size is static (derived from ``rmax``), so the
 per-object work is a fixed-shape distance map + 1-d table lookup
 (jnp.interp) + dynamic_update_slice accumulation inside ``lax.scan``. The
 canvas is padded by one window so slice starts never clamp.
@@ -76,8 +76,8 @@ def paint_templates_centered_batch(shape, pix_scales_rad, tables,
     """Paint a batch of centred radial profiles in ONE device dispatch.
 
     fitQ paints ~55 model templates x n_freq per tile geometry
-    (reference ``signals.py:969-1060``); per-template dispatches cost
-    ~0.1-0.4 s each on remote TPU runtimes, dwarfing the compute.  All
+    (reference ``signals.py:969-1060``); one dispatch per chunk instead
+    of one per template.  All
     tables are padded to a common power-of-two bucket, so one compiled
     program serves every chunk; the shared distance grid is computed
     once per call.
@@ -116,9 +116,8 @@ def paint_template_centered(shape, pix_scales_rad, r_prof, v_prof,
     at the map centre coords, ``nemo/filters.py:1244``).  One fused jitted
     dispatch with the pixel scales, centre and profile table as dynamic
     arguments: survey tiles at different declinations (different pixel
-    scales) reuse the same compiled program - on remote TPU runtimes the
-    eager formulation cost ~6 round trips per template and a
-    recompilation per declination band.
+    scales) reuse the same compiled program instead of recompiling per
+    declination band.
 
     Args:
         shape: (ny, nx).

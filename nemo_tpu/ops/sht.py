@@ -1,4 +1,4 @@
-"""TPU-native spherical-harmonic transforms on CAR iso-latitude rings.
+"""Spherical-harmonic transforms on CAR iso-latitude rings, on the device.
 
 The reference simulates full-survey skies with libsharp-backed curved-sky
 transforms (``nemo/maps.py:1257`` ``curvedsky.rand_map``; the 1/f noise
@@ -12,10 +12,8 @@ libsharp's does:
 
 an FFT over m per ring plus an associated-Legendre contraction over l.
 The Legendre part is evaluated by the standard three-term recurrence in l,
-vectorised over (m, ring) - elementwise work that maps straight onto the
-TPU VPU.  The `lax.scan` path below is the implementation; an optional
-`ops/sht_pallas.py` (not currently present) can drop in a blocked Pallas
-kernel via `_contract`'s dispatch.
+vectorised over (m, ring) - elementwise work that XLA fuses into a few
+kernels per scan step.
 
 Normalisation: orthonormal (healpy default) spherical harmonics with the
 Condon-Shortley phase,
@@ -94,8 +92,8 @@ def _legendre_contract(thetas, alm_re, alm_im, lmax, mmax, adjoint=False,
     msign = jnp.where(jnp.arange(M1)[:, None] % 2 == 0, 1.0, -1.0)
     msign = msign.astype(dtype)
 
-    # Rescale bounds chosen to stay inside float32's NORMAL range on TPU
-    # (denormals are flushed): lanes live in (-2^48, 2^48), hops are <= 96
+    # Rescale bounds chosen to stay inside float32's NORMAL range
+    # (accelerators may flush denormals): lanes live in (-2^48, 2^48), hops are <= 96
     # so a rescale factor 2^-96 and post-hop values ~2^-48 are all normal.
     BIG = dtype(2.0) ** 48
     HOP = 96.0
@@ -221,32 +219,6 @@ def ring_weights(thetas, dphi):
 # Public transforms
 
 
-def _backend():
-    import jax
-    return jax.default_backend()
-
-
-def _contract(thetas, alm_re, alm_im, lmax, mmax, adjoint=False,
-              weights=None, dtype=np.float32):
-    """Dispatch the Legendre contraction: a Pallas kernel on TPU when
-    one is provided (``ops/sht_pallas.py``, an optional drop-in), the
-    lax.scan path otherwise.  Only a MISSING module falls through - a
-    kernel that exists but fails must surface, not silently degrade to
-    the slow path."""
-    if _backend() == "tpu":
-        try:
-            from . import sht_pallas
-        except ImportError:
-            sht_pallas = None
-        if sht_pallas is not None:
-            return sht_pallas.legendre_contract(
-                thetas, alm_re, alm_im, lmax, mmax, adjoint=adjoint,
-                weights=weights, dtype=dtype)
-    return _legendre_contract(thetas, alm_re, alm_im, lmax, mmax,
-                              adjoint=adjoint, weights=weights,
-                              dtype=dtype)
-
-
 def alm2map_car(alm, shape, wcs, lmax=None, dtype=np.float32):
     """Synthesise a real CAR map from (lmax+1, mmax+1) complex alm.
 
@@ -259,7 +231,8 @@ def alm2map_car(alm, shape, wcs, lmax=None, dtype=np.float32):
         lmax = alm.shape[0] - 1
     mmax = alm.shape[1] - 1
     thetas, nphi, phi0, sgn = car_ring_geometry(shape, wcs)
-    F = _contract(thetas, alm.real, alm.imag, lmax, mmax, dtype=dtype)
+    F = _legendre_contract(thetas, alm.real, alm.imag, lmax, mmax,
+                           dtype=dtype)
     Fc = np.asarray(F[0]) + 1j * np.asarray(F[1])      # (M1, R)
     # Ring FFT: T_j = Re sum_m (2-delta_m0) F_m e^{i m phi_j},
     # phi_j = phi0 + sgn * j * 2pi/nphi.  With sgn=-1 the rfft convention
@@ -297,9 +270,9 @@ def map2alm_car(m, shape, wcs, lmax, dtype=np.float32):
     phase = np.exp(-1j * np.arange(M1) * phi0)
     G = (c * phase[None, :]).T * dphi                  # (M1, R)
     w = ring_weights(thetas, 1.0)                      # dphi folded into G
-    out = _contract(thetas, np.ascontiguousarray(G.real),
-                    np.ascontiguousarray(G.imag), lmax, lmax,
-                    adjoint=True, weights=w, dtype=dtype)
+    out = _legendre_contract(thetas, np.ascontiguousarray(G.real),
+                             np.ascontiguousarray(G.imag), lmax, lmax,
+                             adjoint=True, weights=w, dtype=dtype)
     alm = np.asarray(out[0]) + 1j * np.asarray(out[1])
     # alm = sum_r w_r lambda_lm(theta_r) * [dphi sum_j T_j e^{-im phi_j}]
     # approximates the integral T Y*_lm dOmega for every m (the conjugate

@@ -1,20 +1,20 @@
 """The batched, sharded matched-filter step.
 
-This is the TPU-native replacement for the reference's outer MPI loop
+This is the device replacement for the reference's outer MPI loop
 (``nemo/pipelines.py:179``: one tile per rank at a time).  A batch of
 same-shaped tiles ``(n_tiles, n_freq, ny, nx)`` is sharded over the device
 mesh; one jitted step builds the per-tile matched filter (noise covariance
 -> closed-form N^-1 w|s| solve), applies it, estimates the local-noise RMS
 map, forms the S/N map, trims edges, extracts the top-K S/N peaks per tile
 on device, and reduces survey-level statistics (candidate counts, noise
-histograms) with ``psum`` collectives over ICI.
+histograms) with ``psum`` collectives.
 
-Performance notes (one v5e chip, DR5-like 896x1536 tiles):
+Design notes:
 
 * real-input transforms use rfft2/irfft2 (half the FFT work and half the
   Fourier-grid arithmetic of the reference's complex-FFT formulation);
-* the grid sigma-clip RMS estimator runs as a fused Pallas kernel (one HBM
-  read per cell window instead of ~40 for the XLA gather formulation);
+* the grid sigma-clip RMS estimator takes the backend's decision row
+  (on the GPU a fused Pallas Triton kernel, ``ops/noise.py``);
 * the edge trim's huge (~240 px) minimum filter uses the separable
   van Herk algorithm - O(1) per pixel instead of O(window).
 
@@ -28,11 +28,20 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec
 
+from .. import platform
 from ..ops import fourier, imageops
 from ..ops import detect as detect_ops
 from ..ops import noise as noise_ops
 from ..ops import solve as solve_ops
 from .mesh import TILE_AXIS, get_mesh, tile_sharding
+
+
+def _mesh_choices(mesh, rms_impl):
+    """(RMS implementation, segment statistics) for the backend the mesh's
+    devices belong to - which need not be JAX's default backend."""
+    row = platform.choices(mesh.devices.flat[0].platform)
+    return (row.rms_impl if rms_impl == "auto" else rms_impl,
+            row.segment_stats)
 
 
 def _build_and_apply_filter(data, noise, template, w, apodM):
@@ -75,12 +84,13 @@ def make_sharded_tile_step(mesh, gridSize, trimPix, topK=256, threshold=4.0,
 
     Returns a function of (data, noise, template, w, apodM, psMask,
     surveyMask) with a leading tile axis on the array args, sharded over
-    the mesh.  Survey-level statistics ride ICI collectives.
+    the mesh.  Survey-level statistics ride collectives.
     """
     from jax import shard_map
 
     spec_tiles = PartitionSpec(TILE_AXIS)
     spec_rep = PartitionSpec()
+    rms_impl, _ = _mesh_choices(mesh, rms_impl)
 
     def per_shard(data, noise, template, w, apodM, psMask, surveyMask):
         filtered = jax.vmap(
@@ -233,6 +243,7 @@ def make_sharded_realspace_step(mesh, gridSize, trimPix, rms_impl="auto",
     from jax import shard_map
 
     spec_tiles = PartitionSpec(TILE_AXIS)
+    rms_impl, _ = _mesh_choices(mesh, rms_impl)
 
     def per_shard(data, kern, signalNorm, apodM, psMask, surveyMask,
                   meta):
@@ -341,6 +352,7 @@ def make_sharded_matched_filter_step(mesh, gridSize, trimPix,
 
     spec_tiles = PartitionSpec(TILE_AXIS)
     spec_rep = PartitionSpec()
+    rms_impl, segment_stats = _mesh_choices(mesh, rms_impl)
 
     def one_tile(d, n, t, c, w, apod, fg, peakYX):
         nf, ny, nx = d.shape
@@ -382,10 +394,10 @@ def make_sharded_matched_filter_step(mesh, gridSize, trimPix,
         # full filtered-calibration planes.  History: XLA has twice
         # miscompiled reads of that full-map intermediate when fused
         # with the rest of this program - first a vmapped rank-3 gather
-        # (calib reads ~25-33 percent low, CPU and TPU, batch >= 8;
-        # worked around with dynamic_slice), then the dynamic_slice
-        # variant itself at the (768, 1440) DR5 tail bucket on TPU
-        # (signal norm 1.35x high, caught by fitQ's Q[0]/y0 gate).  The
+        # (calib reads ~25-33 percent low at batch >= 8; worked around
+        # with dynamic_slice), then the dynamic_slice variant itself at
+        # the (768, 1440) DR5 tail bucket (signal norm 1.35x high,
+        # caught by fitQ's Q[0]/y0 gate).  The
         # windowed DFT shares no layout with the filtered-map irfft2, so
         # there is no big fused intermediate to corrupt - and it is
         # cheaper than nf full inverse FFTs.  The crop also gives the
@@ -441,7 +453,8 @@ def make_sharded_matched_filter_step(mesh, gridSize, trimPix,
                               0.0) * maskSN
             det = detect_ops.detect_objects_batch(SNMap, threshold,
                                                   max_objects=maxObjects,
-                                                  n_iter=nIter)
+                                                  n_iter=nIter,
+                                                  impl=segment_stats)
             outMap = jax.vmap(_undo_pixel_window_masked)(
                 filtered * maskData, maskData)
             ys = det["comY"] if useCom else det["peakY"]

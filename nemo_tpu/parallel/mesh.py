@@ -4,8 +4,8 @@ The reference distributes map tiles over MPI ranks with a rank-0
 coordinator (``nemo/startUp.py:389-404``).  Here tiles are a batch axis
 sharded over a 1-d ``jax.sharding.Mesh``; survey-level reductions
 (RMS-table histograms, candidate counts - the reference's MPI gathers at
-``pipelines.py:291-331``) become ``psum``/``all_gather`` collectives over
-ICI inside the compiled step.
+``pipelines.py:291-331``) become ``psum``/``all_gather`` collectives
+inside the compiled step, which XLA hands to NCCL on GPUs.
 """
 
 import jax

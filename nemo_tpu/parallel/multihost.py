@@ -1,14 +1,14 @@
-"""Multi-host (DCN) runtime skeleton.
+"""Multi-host runtime skeleton.
 
-The reference spans 15-18 nodes with MPI
-(``/root/reference/examples/ACT-DR5-clusters/DR5ClusterSearch.slurm:1-9``,
-``mpiexec`` over ~300 ranks).  The TPU-native equivalent is NOT a
-message-passing port: JAX's multi-controller runtime
-(``jax.distributed.initialize``) gives every host process the same
-global view of the accelerator mesh, and the existing sharded steps
+The reference spans 15-18 nodes with MPI (``DR5ClusterSearch.slurm:1-9``
+in Nemo's ``examples/ACT-DR5-clusters``, ``mpiexec`` over ~300 ranks).
+The JAX equivalent is NOT a message-passing port: JAX's multi-controller
+runtime (``jax.distributed.initialize``) gives every host process the same
+global view of the device mesh, and the existing sharded steps
 (``distribute.make_sharded_*``) run unchanged - ``jax.sharding.Mesh``
-over ``jax.devices()`` spans slices transparently, with XLA routing
-tile-axis collectives over ICI within a slice and DCN across slices.
+over ``jax.devices()`` spans hosts transparently, with XLA routing
+tile-axis collectives over NVLink within a host and the network across
+hosts.
 
 What changes per layer when spanning hosts:
 
@@ -16,9 +16,9 @@ What changes per layer when spanning hosts:
   which is the GLOBAL device list after ``initialize()`` - no change.
 * **Collectives**: the survey reductions (psum/pmax in
   ``make_sharded_tile_step``) are mesh-axis collectives; across hosts
-  XLA lowers them to DCN allreduce automatically.  The tile axis is
-  embarrassingly parallel outside those reductions, so DCN traffic is
-  O(histogram), not O(maps).
+  XLA lowers them to network all-reduces automatically.  The tile axis
+  is embarrassingly parallel outside those reductions, so cross-host
+  traffic is O(histogram), not O(maps).
 * **Data feeding** (the real work): each host process must stage only
   ITS addressable shard of a tile batch.
   ``jax.make_array_from_process_local_data`` replaces the plain
@@ -32,9 +32,8 @@ What changes per layer when spanning hosts:
 
 This module ships the runtime-init + gating primitives (exercised
 single-process in the test suite; see ``tests/test_parallel.py``) so a
-multi-host launch is a flag, not a rewrite.  Actually exercising >1
-process needs hardware this environment does not provide (one chip,
-one host) - the single-host production path never calls
+multi-host launch is a flag, not a rewrite.  One process drives all the
+cards of one host, so the single-host production path never calls
 ``initialize()``.
 
 Launch contract (one process per host, all hosts):
@@ -43,9 +42,6 @@ Launch contract (one process per host, all hosts):
     JAX_COORDINATOR_ADDRESS=host0:8476 \
     JAX_NUM_PROCESSES=N JAX_PROCESS_ID=i \
         nemo config.yml
-
-or let the TPU runtime's own metadata fill the defaults (on Cloud TPU,
-``initialize()`` discovers everything without arguments).
 """
 
 import os
@@ -64,8 +60,7 @@ def initialize_from_env():
 
     Must run before first device use.  Arguments come from the
     JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    variables when set; on Cloud TPU pods ``jax.distributed.initialize``
-    discovers them from the runtime metadata.  No-op (returns False)
+    variables, which the launch must set.  No-op (returns False)
     when multi-host was not requested, so single-host runs never touch
     the distributed service."""
     if not multihost_requested():

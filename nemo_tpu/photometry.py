@@ -204,7 +204,7 @@ def catalogFromDeviceDetections(filteredMapDict, threshold=3.0, minObjPix=3,
                                 ycObsFreqGHz=148.0, DS9RegionsPath=None):
     """Build the detection + flux catalog from on-device detection
     products (``ops/detect.py`` via the batched engine's device-detect
-    mode) - the TPU-native equivalent of ``findObjects`` +
+    mode) - the device equivalent of ``findObjects`` +
     ``measureFluxes``, with only per-object statistics and spline-window
     cutouts ever leaving the device.
 

@@ -13,7 +13,7 @@ import time
 import jax
 import numpy as np
 
-from . import catalogs, filters, maps, photometry
+from . import catalogs, filters, maps, photometry, platform
 from .utils import fits as nfits
 from .utils.tables import Table, vstack
 from .utils.timing import GLOBAL_TIMER
@@ -229,7 +229,7 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
         catalogDict[label]["catalog"] = catalog
 
     # Opt-in device batching: run every eligible filter over ALL tiles as
-    # one sharded call per shape bucket (the TPU replacement for the
+    # one sharded call per shape bucket (the device replacement for the
     # reference's one-tile-per-MPI-rank distribution). Results STREAM
     # through _processFilteredMap as each chunk completes (detection
     # overlaps the next chunk's device work); host-only filters of a
@@ -285,14 +285,15 @@ def _filterMapsAndMakeCatalogs(config, rootOutDir=None,
                 return True
 
         # Fully device-side detection when the whole pipeline shape
-        # allows it (TPU by default - it keeps the full maps off the
-        # slow host link; force with useDeviceDetection: true/false).
+        # allows it (the backend's decision row by default - it keeps
+        # the full maps on the device; force with useDeviceDetection:
+        # true/false).
         # Requires the WHOLE bank eligible: the fixed_ cutout gathers ride
         # the reference filter's device-resident maps.
         detectParams = None
         dd = config.parDict.get("useDeviceDetection", "auto")
         wantDetect = (dd is True) or (dd == "auto"
-                                      and jax.default_backend() == "tpu")
+                                      and platform.choices().device_detection)
         if wantDetect and fullStream and eligible and measureFluxes \
                 and undoPixelWindow \
                 and not config.parDict.get("forcedPhotometryCatalog") \

@@ -15,6 +15,10 @@ class StageTimer:
     """Accumulates wall-clock per named stage; printable / JSON-able."""
 
     def __init__(self):
+        self.reset()
+
+    def reset(self):
+        """Forget every stage and restart the total clock."""
         self.stages = {}
         self._t0 = time.time()
 

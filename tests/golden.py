@@ -35,28 +35,33 @@ INPUT_DEC = [-2.6, -1.3, -2.1, -0.6, -1.8, -2.4, 0.9, 1.7,
 INPUT_YC = [3.0, 4.5, 2.5, 5.0, 3.5, 2.8, 4.0, 3.2, 5.5, 2.6, 3.8, 4.2]
 
 
-def run_pipeline(workDir):
-    """Simulate (fixed seed) -> filter -> detect -> optimal catalog.
-    Returns (inputTab, recovered catalog)."""
-    import yaml
+def input_table():
+    from nemo_tpu.utils.tables import Table
 
+    return Table({"name": np.array(INPUT_NAME),
+                  "RADeg": np.array(INPUT_RA),
+                  "decDeg": np.array(INPUT_DEC),
+                  "y_c": np.array(INPUT_YC),
+                  "template": np.array(["Arnaud_M2e14_z0p4"] * 12)})
+
+
+def write_inputs(workDir):
+    """Simulate the sky (fixed seeds) and write maps, beams and the
+    config into ``workDir``.  The CMB draw depends on the dtype, so the
+    golden sky is the float64 one.  Returns the config path."""
     import jax
 
-    from nemo_tpu import maps, pipelines, startup
+    from nemo_tpu import maps
     from nemo_tpu.models import beams
     from nemo_tpu.ops import grf
     from nemo_tpu.utils import fits as nfits
     from nemo_tpu.utils import wcs as nwcs
-    from nemo_tpu.utils.tables import Table
+    from nemo_tpu.utils import yamlio
 
     os.makedirs(workDir, exist_ok=True)
     w = nwcs.makeWCS(SHAPE, PIX_ARCMIN / 60.0, centreRADeg=30.0,
                      centreDecDeg=0.0)
-    inputTab = Table({"name": np.array(INPUT_NAME),
-                      "RADeg": np.array(INPUT_RA),
-                      "decDeg": np.array(INPUT_DEC),
-                      "y_c": np.array(INPUT_YC),
-                      "template": np.array(["Arnaud_M2e14_z0p4"] * 12)})
+    inputTab = input_table()
 
     mapEntries = []
     for i, (band, freq, fwhm, noise) in enumerate(BANDS):
@@ -93,10 +98,18 @@ def run_pipeline(workDir):
     }
     configPath = os.path.join(workDir, "golden.yml")
     with open(configPath, "w") as f:
-        yaml.safe_dump(configDict, f)
-    config = startup.NemoConfig(configPath)
+        f.write(yamlio.dump(configDict))
+    return configPath
+
+
+def run_pipeline(workDir):
+    """Simulate (fixed seed) -> filter -> detect -> optimal catalog.
+    Returns (inputTab, recovered catalog)."""
+    from nemo_tpu import pipelines, startup
+
+    config = startup.NemoConfig(write_inputs(workDir))
     catalog = pipelines.filterMapsAndMakeCatalogs(config)
-    return inputTab, catalog
+    return input_table(), catalog
 
 
 def make_golden(workDir):

@@ -1,6 +1,6 @@
 """Device-batched production filtering (useDeviceBatching): the sharded
 multi-tile engine must reproduce the per-tile host engine's catalog on the
-same tiled sim - this is the TPU replacement for the reference's MPI tile
+same tiled sim - this is the device replacement for the reference's MPI tile
 distribution running through the REAL pipeline, not just the benchmark
 step."""
 

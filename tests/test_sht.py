@@ -1,5 +1,5 @@
 """Curved-sky spherical-harmonic transforms (``nemo_tpu/ops/sht.py``):
-the TPU-native counterpart of the reference's libsharp-backed
+the JAX counterpart of the reference's libsharp-backed
 ``curvedsky.rand_map`` / ``map2alm`` / ``alm2map``
 (``/root/reference/nemo/maps.py:1257,1326-1341``)."""
 
@@ -74,7 +74,7 @@ def test_round_trip_full_sphere():
 
 
 def test_float32_matches_float64():
-    """The scaled recurrence must stay accurate in float32 (TPU compute
+    """The scaled recurrence must stay accurate in float32 (device compute
     dtype): the float64 run is the reference."""
     shape = (64, 128)
     w = nwcs.makeWCS(shape, 0.5 / 60.0, centreRADeg=30.0,
